@@ -1,11 +1,11 @@
 // Native scene-graph runtime core.
 //
-// TPU-native counterpart of the reference's native scene layer
+// Native counterpart of the reference's native scene layer
 // (IoniqRE/scene.{h,cu}, model.{h,cu}, mesh.{h,cu}): the compute path is
 // JAX/XLA/Pallas, but the runtime around it — scene CRUD, procedural mesh
 // generation, TRS transform caching, and flattening the scene into the SoA
 // packet the device consumes — is C++ just like the reference's. Exposed as
-// a C ABI consumed from Python via ctypes (ptre_tpu/models/native_scene.py).
+// a C ABI consumed from Python via ctypes (ptre/models/native_scene.py).
 //
 // Semantics mirrored from the reference:
 //   * name→mesh / name→model maps; models iterated sorted by mesh name with

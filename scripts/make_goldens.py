@@ -16,12 +16,12 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from ptre_tpu.models import demo
-from ptre_tpu.ops import camera as cam_ops, rng
-from ptre_tpu.render import pathtracer as pt
-from ptre_tpu.render import rasterizer as ras
-from ptre_tpu.utils.config import RasterConfig, RenderConfig
-from ptre_tpu.utils.image import write_ppm
+from ptre.models import demo
+from ptre.ops import camera as cam_ops, rng
+from ptre.render import pathtracer as pt
+from ptre.render import rasterizer as ras
+from ptre.utils.config import RasterConfig, RenderConfig
+from ptre.utils.image import write_ppm
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "tests", "goldens")

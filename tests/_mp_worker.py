@@ -29,12 +29,12 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ptre_tpu.models import demo  # noqa: E402
-from ptre_tpu.ops import camera as cam_ops, rng  # noqa: E402
-from ptre_tpu.parallel import distributed as dist  # noqa: E402
-from ptre_tpu.parallel import sharding as sh  # noqa: E402
-from ptre_tpu.render import pathtracer as pt  # noqa: E402
-from ptre_tpu.utils.config import RenderConfig  # noqa: E402
+from ptre.models import demo  # noqa: E402
+from ptre.ops import camera as cam_ops, rng  # noqa: E402
+from ptre.parallel import distributed as dist  # noqa: E402
+from ptre.parallel import sharding as sh  # noqa: E402
+from ptre.render import pathtracer as pt  # noqa: E402
+from ptre.utils.config import RenderConfig  # noqa: E402
 
 H = W = 16
 

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptre_tpu.models import demo, mesh as mg
-from ptre_tpu.models.scene import Material, MaterialKind, Model, Scene
-from ptre_tpu.ops import camera as cam_ops, integrator, rng
-from ptre_tpu.render import pathtracer as pt
-from ptre_tpu.utils.config import RenderConfig
+from ptre.models import demo, mesh as mg
+from ptre.models.scene import Material, MaterialKind, Model, Scene
+from ptre.ops import camera as cam_ops, integrator, rng
+from ptre.render import pathtracer as pt
+from ptre.utils.config import RenderConfig
 
 
 def test_lambertian_sphere_under_sky_depth1_analytic():
@@ -36,8 +36,7 @@ def test_lambertian_sphere_under_sky_depth1_analytic():
     # σ=0: pure Lambertian (A=1, B=0)
     scn._materials[0] = Material(MaterialKind.OREN_NAYAR, (0.5, 0.5, 0.5), 0.0)
     pkt = scn.build_packet()
-    cfg = RenderConfig(width=2, height=2, max_depth=2, clamp_samples=False,
-                       grad_sweep="staged")
+    cfg = RenderConfig(width=2, height=2, max_depth=2, clamp_samples=False)
 
     o = jnp.array([[0.0, 0.5, -3.0]], jnp.float32)
     d = jnp.array([[0.0, 0.0, 1.0]], jnp.float32)
@@ -74,8 +73,7 @@ def test_lambertian_floor_under_emissive_dome_exact():
     scn._materials[0] = Material(MaterialKind.OREN_NAYAR, (0.25, 0.5, 0.75), 0.0)
     scn._materials[1] = Material(MaterialKind.EMISSIVE, (1.0, 0.8, 0.6), 10.0)
     pkt = scn.build_packet()
-    cfg = RenderConfig(width=2, height=2, max_depth=3, clamp_samples=False,
-                       grad_sweep="staged")
+    cfg = RenderConfig(width=2, height=2, max_depth=3, clamp_samples=False)
 
     # straight-down rays from above the floor
     o = jnp.tile(jnp.array([[0.3, 1.0, 0.1]], jnp.float32), (4, 1))
@@ -98,7 +96,7 @@ def test_progressive_variance_scales_inverse_n():
     pkt = scn.build_packet()
     H = W = 8
     cam = cam_ops.Camera.create(width=W, height=H)
-    cfg = RenderConfig(width=W, height=H, grad_sweep="staged")
+    cfg = RenderConfig(width=W, height=H)
 
     K = 48
 

@@ -15,7 +15,7 @@ import io
 import numpy as np
 import pytest
 
-from ptre_tpu.app.events import (
+from ptre.app.events import (
     NUM_EVENTS,
     Keyboard,
     KeyEventType,
@@ -23,8 +23,8 @@ from ptre_tpu.app.events import (
     MouseButton,
     MouseEventType,
 )
-from ptre_tpu.app.timer import Timer
-from ptre_tpu.app.window import (
+from ptre.app.timer import Timer
+from ptre.app.window import (
     MSG_BUTTON_DOWN,
     MSG_BUTTON_UP,
     MSG_CLOSE,
@@ -203,10 +203,10 @@ def test_timer_delta_and_total_with_fake_clock():
 # ------------------------------------------------------------- application
 @pytest.fixture()
 def tiny_renderer():
-    from ptre_tpu.models import demo
-    from ptre_tpu.ops import camera as cam_ops
-    from ptre_tpu.render.engine import Renderer
-    from ptre_tpu.utils.config import RasterConfig, RenderConfig
+    from ptre.models import demo
+    from ptre.ops import camera as cam_ops
+    from ptre.render.engine import Renderer
+    from ptre.utils.config import RasterConfig, RenderConfig
 
     scene = demo.reference_demo_scene(8, 4)
     cam = cam_ops.Camera.create(width=16, height=12)
@@ -219,8 +219,8 @@ def tiny_renderer():
 
 
 def test_application_p_key_toggles_engine(tiny_renderer):
-    from ptre_tpu.app.application import Application
-    from ptre_tpu.render.engine import EngineKind
+    from ptre.app.application import Application
+    from ptre.render.engine import EngineKind
 
     w = Window(16, 12)
     app = Application(window=w, renderer=tiny_renderer)
@@ -239,7 +239,7 @@ def test_application_p_key_toggles_engine(tiny_renderer):
 
 
 def test_application_right_button_resets_accumulation(tiny_renderer):
-    from ptre_tpu.app.application import Application
+    from ptre.app.application import Application
 
     w = Window(16, 12)
     app = Application(window=w, renderer=tiny_renderer)
@@ -253,7 +253,7 @@ def test_application_right_button_resets_accumulation(tiny_renderer):
 
 
 def test_application_quit_message_stops_loop(tiny_renderer):
-    from ptre_tpu.app.application import Application
+    from ptre.app.application import Application
 
     w = Window(16, 12)
     app = Application(window=w, renderer=tiny_renderer)
@@ -262,7 +262,7 @@ def test_application_quit_message_stops_loop(tiny_renderer):
 
 
 def test_application_fps_title_format(tiny_renderer):
-    from ptre_tpu.app.application import Application
+    from ptre.app.application import Application
 
     w = Window(16, 12)
     app = Application(window=w, renderer=tiny_renderer)

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ptre_tpu.ops import camera as cam_ops
-from ptre_tpu.ops import vecmat as vm
+from ptre.ops import camera as cam_ops
+from ptre.ops import vecmat as vm
 
 
 def _centered_cam(w=64, h=64, fov=90.0):

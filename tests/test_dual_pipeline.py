@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ptre_tpu.models import demo
-from ptre_tpu.ops import camera as cam_ops, rng
-from ptre_tpu.parallel import sharding as sh
-from ptre_tpu.render import pathtracer as pt, rasterizer as rz
-from ptre_tpu.utils.config import RasterConfig, RenderConfig
+from ptre.models import demo
+from ptre.ops import camera as cam_ops, rng
+from ptre.parallel import sharding as sh
+from ptre.render import pathtracer as pt, rasterizer as rz
+from ptre.utils.config import RasterConfig, RenderConfig
 
 H, W = 32, 16
 
@@ -38,7 +38,7 @@ def test_shard_raster_matches_single_device():
     mesh = sh.make_mesh((4, 2))
     img_sharded = sh.shard_raster_step(mesh, rpkt, cam, rcfg)
     img = sh.to_image_order(img_sharded, 4, H)
-    img_single = rz.rasterize(rpkt, cam, rcfg, backend="xla")
+    img_single = rz.rasterize(rpkt, cam, rcfg)
     np.testing.assert_allclose(
         np.asarray(img), np.asarray(img_single), rtol=1e-6, atol=1e-6)
 
@@ -49,7 +49,7 @@ def test_shard_raster_soft_matches_single_device():
     mesh = sh.make_mesh((8, 1))
     img_sharded = sh.shard_raster_step(mesh, rpkt, cam, rcfg, soft=True)
     img = sh.to_image_order(img_sharded, 8, H)
-    img_single = rz.rasterize(rpkt, cam, rcfg, soft=True, backend="xla")
+    img_single = rz.rasterize(rpkt, cam, rcfg, soft=True)
     np.testing.assert_allclose(
         np.asarray(img), np.asarray(img_single), rtol=1e-6, atol=1e-6)
 
@@ -61,7 +61,7 @@ def test_shard_raster_block_order_matches_single_device():
     img_sharded = sh.shard_raster_step(mesh, rpkt, cam, rcfg,
                                        row_order="block")
     img = sh.to_image_order(img_sharded, 4, H, row_order="block")
-    img_single = rz.rasterize(rpkt, cam, rcfg, backend="xla")
+    img_single = rz.rasterize(rpkt, cam, rcfg)
     np.testing.assert_allclose(
         np.asarray(img), np.asarray(img_single), rtol=1e-6, atol=1e-6)
 
@@ -110,46 +110,3 @@ def test_dual_train_step_matches_unsharded():
     # both must be same order of magnitude and not identically zero
     assert float(jnp.abs(g_r).sum()) > 0.0
     assert float(jnp.abs(grads["transforms"]).sum()) > 0.0
-
-
-@pytest.mark.slow
-def test_soft_kernel_matches_xla_values_and_gradients():
-    """The Pallas SoftRas kernel pair (ops.pallas.soft_raster, custom VJP)
-    must reproduce the XLA soft path's image AND gradients (round-3 VERDICT
-    next-round #2 done-condition)."""
-    from ptre_tpu.models import demo as demo_mod
-    from ptre_tpu.ops.pallas import soft_raster as sr
-
-    Wk, Hk = 128, 8  # lanes-aligned width for the kernel
-    scn = demo_mod.reference_demo_scene(8, 4)
-    rpkt = scn.build_packet(spheres_as_triangles=True)
-    kcam = cam_ops.Camera.create(width=Wk, height=Hk)
-    kcfg = RasterConfig(width=Wk, height=Hk, supersample=1)
-
-    ref = np.asarray(rz.raster_rows(rpkt, kcam, kcfg, 0.0, Hk, soft=True,
-                                    sigma=0.5, backend="xla"))
-    got = np.asarray(sr.rasterize_soft_fused(rpkt, kcam, kcfg, sigma=0.5,
-                                             interpret=True))
-    np.testing.assert_allclose(got, ref, atol=3e-5)
-
-    tgt = jnp.linspace(0, 1, Hk * Wk * 3).reshape(Hk, Wk, 3)
-
-    def loss(raster_fn, tr):
-        img = raster_fn(rpkt.replace(transforms=tr))
-        return jnp.mean((img - tgt) ** 2)
-
-    v1, g1 = jax.value_and_grad(
-        lambda tr: loss(lambda p: rz.raster_rows(
-            p, kcam, kcfg, 0.0, Hk, soft=True, sigma=0.5, backend="xla"), tr)
-    )(rpkt.transforms)
-    v2, g2 = jax.value_and_grad(
-        lambda tr: loss(lambda p: sr.rasterize_soft_fused(
-            p, kcam, kcfg, sigma=0.5, interpret=True), tr)
-    )(rpkt.transforms)
-    np.testing.assert_allclose(float(v1), float(v2), rtol=1e-6)
-    scale = float(np.abs(np.asarray(g1)).max())
-    assert scale > 0.0
-    # kernel vs XLA differ by float reassociation (online-softmax rescaling
-    # vs one-shot softmax): agreement to ~1e-3 of the gradient scale
-    np.testing.assert_allclose(np.asarray(g2), np.asarray(g1),
-                               atol=2e-3 * scale, rtol=2e-3)

@@ -5,14 +5,14 @@ import os
 import numpy as np
 import pytest
 
-from ptre_tpu.models import demo
-from ptre_tpu.ops import camera as cam_ops
-from ptre_tpu.render import pathtracer as pt
-from ptre_tpu.render.engine import EngineKind, Renderer
-from ptre_tpu.utils import checkpoint as ckpt
-from ptre_tpu.utils.config import RasterConfig, RenderConfig
-from ptre_tpu.utils.errors import CheckpointError
-from ptre_tpu.utils.image import read_ppm, write_ppm
+from ptre.models import demo
+from ptre.ops import camera as cam_ops
+from ptre.render import pathtracer as pt
+from ptre.render.engine import EngineKind, Renderer
+from ptre.utils import checkpoint as ckpt
+from ptre.utils.config import RasterConfig, RenderConfig
+from ptre.utils.errors import CheckpointError
+from ptre.utils.image import read_ppm, write_ppm
 
 
 def _renderer(w=24, h=16, **kw):
@@ -126,7 +126,7 @@ def test_ppm_roundtrip(tmp_path):
 
 
 def test_cli_render_and_info(tmp_path, capsys):
-    from ptre_tpu import cli
+    from ptre import cli
 
     rc = cli.main([
         "render", "--scene", "demo", "--width", "24", "--height", "16",
@@ -153,7 +153,7 @@ def test_cli_render_and_info(tmp_path, capsys):
 
 
 def test_cli_raster_engine(tmp_path):
-    from ptre_tpu import cli
+    from ptre import cli
 
     rc = cli.main([
         "render", "--engine", "raster", "--width", "24", "--height", "16",

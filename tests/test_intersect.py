@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ptre_tpu.models import mesh as mg
-from ptre_tpu.models.scene import Model, Scene
-from ptre_tpu.ops import intersect as it
+from ptre.models import mesh as mg
+from ptre.models.scene import Model, Scene
+from ptre.ops import intersect as it
 
 
 def _rays(os_, ds_):
@@ -130,7 +130,7 @@ def test_triangle_smooth_normal_interpolation():
 
 
 def _demo_packet():
-    from ptre_tpu.models import demo
+    from ptre.models import demo
 
     scn = demo.reference_demo_scene(8, 4)
     return scn.build_packet(tri_pad=8, sph_pad=4)

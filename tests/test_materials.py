@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ptre_tpu.ops import materials as mat
-from ptre_tpu.ops import rng
-from ptre_tpu.ops.vecmat import pi
+from ptre.ops import materials as mat
+from ptre.ops import rng
+from ptre.ops.vecmat import pi
 
 
 def _scatter(n_rays=4096, kind=mat.KIND_OREN_NAYAR, albedo=(0.5, 0.5, 0.5),

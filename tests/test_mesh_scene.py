@@ -5,11 +5,11 @@ import math
 import numpy as np
 import pytest
 
-from ptre_tpu.models import demo, mesh as mg
-from ptre_tpu.models.scene import (
+from ptre.models import demo, mesh as mg
+from ptre.models.scene import (
     DEFAULT_EMISSIVE, DEFAULT_OREN_NAYAR, Material, MaterialKind, Model, Scene,
 )
-from ptre_tpu.utils.errors import SceneError
+from ptre.utils.errors import SceneError
 
 
 def test_tri_quad_topology():

@@ -15,11 +15,11 @@ import sys
 import numpy as np
 import pytest
 
-from ptre_tpu.models import demo
-from ptre_tpu.ops import camera as cam_ops, rng
-from ptre_tpu.parallel import sharding as sh
-from ptre_tpu.render import pathtracer as pt
-from ptre_tpu.utils.config import RenderConfig
+from ptre.models import demo
+from ptre.ops import camera as cam_ops, rng
+from ptre.parallel import sharding as sh
+from ptre.render import pathtracer as pt
+from ptre.utils.config import RenderConfig
 
 # slow tier: real 2-process jax.distributed runs (~minutes on a shared host)
 pytestmark = pytest.mark.slow

@@ -6,7 +6,7 @@ import shutil
 import numpy as np
 import pytest
 
-from ptre_tpu.models import demo, mesh as mg
+from ptre.models import demo, mesh as mg
 
 pytestmark = pytest.mark.skipif(
     shutil.which("g++") is None and shutil.which("make") is None,
@@ -16,7 +16,7 @@ pytestmark = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def native():
-    from ptre_tpu.models import native_scene
+    from ptre.models import native_scene
 
     native_scene.build_library()
     return native_scene
@@ -111,7 +111,7 @@ def test_raw_mesh_and_material(native):
     m = mg.uv_sphere(False, 6, 4, mg.MeshType.TRIANGLES)
     assert ns.add_mesh_raw("ball", m.positions, m.normals, m.indices)
     assert ns.add_model("b", "ball")
-    from ptre_tpu.models.scene import Material, MaterialKind
+    from ptre.models.scene import Material, MaterialKind
 
     gold = ns.add_material(Material(MaterialKind.OREN_NAYAR, (0.9, 0.7, 0.2), 0.3))
     assert ns.set_model_material("b", gold)
@@ -124,9 +124,9 @@ def test_native_packet_renders(native):
     """The native-built packet feeds the JAX path tracer unchanged."""
     import jax.numpy as jnp
 
-    from ptre_tpu.ops import camera as cam_ops, rng
-    from ptre_tpu.render import pathtracer as pt
-    from ptre_tpu.utils.config import RenderConfig
+    from ptre.ops import camera as cam_ops, rng
+    from ptre.render import pathtracer as pt
+    from ptre.utils.config import RenderConfig
 
     nat = _native_demo(native).build_packet()
     py = demo.reference_demo_scene(8, 4).build_packet()

@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ptre_tpu.ops import intersect as it
-from ptre_tpu.ops import materials as mat
-from ptre_tpu.ops import rng
-from ptre_tpu.ops import vecmat as vm
+from ptre.ops import intersect as it
+from ptre.ops import materials as mat
+from ptre.ops import rng
+from ptre.ops import vecmat as vm
 
 
 def test_plane_edges_matches_moller_trumbore():
@@ -94,7 +94,7 @@ def test_inverse_singular_gradient_is_finite():
 
 
 def test_get_model_read_does_not_dirty_but_mutation_does():
-    from ptre_tpu.models import demo
+    from ptre.models import demo
 
     scn = demo.reference_demo_scene(8, 4)
     scn.build_packet()

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptre_tpu.models import demo, mesh as mg
-from ptre_tpu.models.scene import Model, Scene
-from ptre_tpu.ops import camera as cam_ops
-from ptre_tpu.render import rasterizer as ras
-from ptre_tpu.utils.config import RasterConfig, RenderConfig
+from ptre.models import demo, mesh as mg
+from ptre.models.scene import Model, Scene
+from ptre.ops import camera as cam_ops
+from ptre.render import rasterizer as ras
+from ptre.utils.config import RasterConfig, RenderConfig
 
 CLEAR = np.array([0.62, 0.84, 1.0], np.float32)
 
@@ -123,15 +123,15 @@ def test_row_chunking_matches():
 def test_ab_silhouette_matches_path_tracer():
     """The reference's defining property: both engines share one camera and
     show the same geometry (`camera.cu:20-43` inverse pipeline)."""
-    from ptre_tpu.ops import integrator, rng
-    from ptre_tpu.render import pathtracer as pt
+    from ptre.ops import integrator, rng
+    from ptre.render import pathtracer as pt
 
     scn = demo.reference_demo_scene(48, 24)
     cam = cam_ops.Camera.create(width=48, height=32)
 
     # PT primary-hit mask (analytic spheres + cube)
     pkt = scn.build_packet()
-    from ptre_tpu.ops.intersect import closest_hit
+    from ptre.ops.intersect import closest_hit
 
     px, py = pt.pixel_grid(32, 48)
     o, d = cam_ops.get_rays(cam, px, py, jnp.zeros((32 * 48, 2)))
@@ -168,9 +168,8 @@ def test_soft_rasterizer_differentiable_silhouette():
 
 def test_rasterize_frames_matches_per_frame():
     """K-frames-per-dispatch (`rasterize_frames`) == K single rasterize
-    calls frame-for-frame — the amortized-vsync path must not change
-    images (round-5; docs/artifacts/RASTER_AMORTIZED.json)."""
-    from ptre_tpu.ops import vecmat as vm
+    calls frame-for-frame — batching frames must not change images."""
+    from ptre.ops import vecmat as vm
 
     scn = demo.reference_demo_scene(8, 4)
     pkt = scn.build_packet(spheres_as_triangles=True)
@@ -184,9 +183,80 @@ def test_rasterize_frames_matches_per_frame():
         frames.append(tf.at[-1].set(rot @ tf[-1]))
     seq = jnp.stack(frames)
 
-    batched = ras.rasterize_frames(pkt, cam, seq, cfg, backend="xla")
+    batched = ras.rasterize_frames(pkt, cam, seq, cfg)
     for f in range(3):
         one = ras.rasterize(pkt.replace(transforms=seq[f]), cam, cfg,
-                            backend="xla")
+                            )
         np.testing.assert_allclose(np.asarray(batched[f]), np.asarray(one),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _all_pairs_hard_tile(sx, sy, screen, depth01, w, normals, valid, config,
+                         soft, sigma):
+    """The hard z-buffer as first written: shade EVERY (sample, triangle)
+    pair, then gather the z-test winner's color."""
+    x0, y0 = screen[:, 0, 0], screen[:, 0, 1]
+    x1, y1 = screen[:, 1, 0], screen[:, 1, 1]
+    x2, y2 = screen[:, 2, 0], screen[:, 2, 1]
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    keep = valid & (jnp.min(w, axis=1) > 0.0)
+    keep = keep & (area > 0.0) if config.cull_backfaces else (
+        keep & (jnp.abs(area) > 0.0))
+
+    def san(v, fill=0.0):
+        return jnp.where(keep, v, fill)
+
+    x0, y0, x1, y1, x2, y2 = map(san, (x0, y0, x1, y1, x2, y2))
+    depth01 = jnp.where(keep[:, None], depth01, 0.5)
+    w = jnp.where(keep[:, None], w, 1.0)
+    normals = jnp.where(keep[:, None, None], normals, 0.0)
+    inv_area = 1.0 / jnp.where(san(area, 1.0) == 0.0, 1.0, san(area, 1.0))
+    px, py = sx[:, None], sy[:, None]
+    w0 = ((x1 - px) * (y2 - py) - (x2 - px) * (y1 - py)) * inv_area[None, :]
+    w1 = ((x2 - px) * (y0 - py) - (x0 - px) * (y2 - py)) * inv_area[None, :]
+    w2 = 1.0 - w0 - w1
+    z = (w0 * depth01[None, :, 0] + w1 * depth01[None, :, 1]
+         + w2 * depth01[None, :, 2])
+    iw = 1.0 / w
+    denom = w0 * iw[None, :, 0] + w1 * iw[None, :, 1] + w2 * iw[None, :, 2]
+    n = (w0[..., None] * (normals[:, 0] * iw[:, 0, None])[None]
+         + w1[..., None] * (normals[:, 1] * iw[:, 1, None])[None]
+         + w2[..., None] * (normals[:, 2] * iw[:, 2, None])[None]
+         ) / denom[..., None]
+    color = ras.shade(ras.vm.normalize(n), config)  # (P, T, 3)
+    covered = ((w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0)
+               & (z >= 0.0) & (z <= 1.0) & keep[None, :])
+    best = jnp.argmin(jnp.where(covered, z, jnp.inf), axis=1)
+    out = jnp.take_along_axis(color, best[:, None, None], axis=1)[:, 0, :]
+    return jnp.where(jnp.any(covered, axis=1)[:, None], out,
+                     jnp.asarray(config.clear_color, jnp.float32))
+
+
+def test_deferred_winner_matches_all_pairs_shading(monkeypatch):
+    """Shading only the z-test winner gives the image that shading every
+    (sample, triangle) pair and gathering the winner gave."""
+    pkt = demo.reference_demo_scene(16, 8).build_packet(
+        spheres_as_triangles=True)
+    cam = cam_ops.Camera.create(width=48, height=32)
+    cfg = RasterConfig(width=48, height=32)
+    new = np.asarray(ras.rasterize(pkt, cam, cfg))
+    monkeypatch.setattr(ras, "_raster_tile", _all_pairs_hard_tile)
+    old = np.asarray(ras.rasterize(pkt, cam, cfg))
+    assert (np.abs(old - CLEAR).max(-1) > 1e-3).mean() > 0.2  # geometry
+    np.testing.assert_allclose(new, old, atol=1e-6)
+
+
+def test_interpolated_normal_finite_where_perspective_denominator_is_zero():
+    """A far (sample, triangle) pair of the soft blend can have a zero
+    perspective denominator; its shaded value and gradient stay finite."""
+    cfg = RasterConfig()
+    iw = jnp.array([[1.0, 1.0, 1.0]], jnp.float32)
+    normals = jnp.eye(3, dtype=jnp.float32)[None]
+
+    def f(w0):
+        w1, w2 = -w0, jnp.zeros_like(w0)  # denom = w0 - w0 = 0
+        return jnp.sum(ras._shade_interp(w0, w1, w2, iw, normals, cfg))
+
+    w0 = jnp.array([0.5], jnp.float32)
+    assert np.isfinite(float(f(w0)))
+    assert np.isfinite(np.asarray(jax.grad(f)(w0))).all()

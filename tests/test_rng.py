@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ptre_tpu.ops import rng
+from ptre.ops import rng
 
 
 def test_uniform_range_and_determinism():

@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ptre_tpu.models import demo
-from ptre_tpu.ops import camera as cam_ops, rng
-from ptre_tpu.parallel import sharding as sh
-from ptre_tpu.utils.config import RenderConfig
+from ptre.models import demo
+from ptre.ops import camera as cam_ops, rng
+from ptre.parallel import sharding as sh
+from ptre.utils.config import RenderConfig
 
 pytestmark = pytest.mark.slow
 

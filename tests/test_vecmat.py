@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ptre_tpu.ops import vecmat as vm
+from ptre.ops import vecmat as vm
 
 
 def test_constants():
